@@ -1,4 +1,4 @@
-"""hank_tpu — TPU-native sequence-space Newton-Raphson HANK solver.
+"""hank_tpu — sequence-space Newton-Raphson HANK solver in JAX.
 
 A brand-new JAX framework with the capabilities of the Julia reference
 (vasudeva-ram/Julia-NewtonRaphsonHANK, Boehl 2024 "HANK on Speed"): YAML model
@@ -9,8 +9,7 @@ run on-device under `jit`, with `vmap`/`pjit` batching shock ensembles across a
 `jax.sharding.Mesh`.
 
 Double precision is enabled on import (the solver targets 1e-8 pointwise
-accuracy; TPU runs f64 via XLA emulation for elementwise/matmul ops, while
-dense factorizations use f32 LU + f64 iterative refinement — see
+accuracy; dense factorizations use f32 LU + f64 iterative refinement — see
 `hank_tpu.ops.linalg`).
 """
 
@@ -20,21 +19,25 @@ import jax as _jax
 
 _jax.config.update("jax_enable_x64", True)
 
-# TPU f32 matmuls default to bf16 passes; the solver's f32 direction sweeps
-# need true f32 accuracy (matmuls here are tiny — no performance cost).
+# On a GPU, f32 matmuls may otherwise run in TF32 (~3 decimal digits); the
+# solver's f32 direction sweeps and the f32 J̄⁻¹ preconditioner application
+# (`ops/linalg.make_reusable_solver`) need true f32 accuracy.
 _jax.config.update("jax_default_matmul_precision", "highest")
 
 # Persistent XLA compilation cache: the solver's jitted pipelines (scans +
-# while_loops + refinement solves) are expensive to compile; caching makes
-# repeated CLI runs / test sessions start in seconds.
-_cache_dir = _os.environ.get(
-    "HANK_TPU_CACHE", _os.path.expanduser("~/.cache/hank_tpu/xla"))
-try:
-    _os.makedirs(_cache_dir, exist_ok=True)
-    _jax.config.update("jax_compilation_cache_dir", _cache_dir)
-    _jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-except Exception:  # pragma: no cover — cache is best-effort
-    pass
+# while_loops + refinement solves) are expensive to compile. JAX reads
+# JAX_COMPILATION_CACHE_DIR itself when it is set; otherwise the cache lives
+# at a fixed path inside the checkout (the path is part of the cache key).
+REPO_CACHE_DIR = _os.path.join(
+    _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))),
+    ".jax_cache")
+if not _os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+    try:
+        _os.makedirs(REPO_CACHE_DIR, exist_ok=True)
+        _jax.config.update("jax_compilation_cache_dir", REPO_CACHE_DIR)
+    except OSError:  # pragma: no cover — cache is best-effort
+        pass
+_jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 
 from hank_tpu import config  # noqa: E402
 from hank_tpu.model.structures import (  # noqa: E402

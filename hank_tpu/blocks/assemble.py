@@ -3,7 +3,7 @@
 Capability parity with the reference's L6 aggregate block
 (`GeneralStructures.jl:266-455`, `Aggregation.jl:20-22`).
 
-TPU-first notes: `assemble_full_xmat` is a pure concatenation (no in-place
+Design notes: `assemble_full_xmat` is a pure concatenation (no in-place
 scatter), so it is natively differentiable — the reference's hand-written
 rrule (`GeneralStructures.jl:392-427`) is unnecessary. Row ordering is the
 variable ordering (endogenous block, heterogeneous block, exogenous block,

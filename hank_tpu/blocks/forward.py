@@ -3,7 +3,7 @@
 Capability parity with the reference's `ForwardIteration` and its custom
 rrules (`ForwardIteration.jl:253-420`). The Julia `for t = 1 ... T-1` loop of
 sparse matrix-vector products becomes a `jax.lax.scan` of
-`ops.transition.forward_step` (scatter-add + MXU matmul). The scan is natively
+`ops.transition.forward_step` (scatter-add + matmul). The scan is natively
 reverse-differentiable, so the reference's 80-line hand-written reverse-time
 pullback (`ForwardIteration.jl:339-420`) is replaced by `jax.vjp` of this
 function — with identical O(n_m)-per-step structure, since the cotangent of a

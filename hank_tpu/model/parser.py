@@ -9,7 +9,7 @@ Capability parity with the reference's model compiler (`ModelParser.jl`):
   notation (`ModelParser.jl:137-172`).
 - `build_model_from_yaml` is the main entry (`ModelParser.jl:296-379`).
 
-TPU-first design: instead of Julia AST -> `eval`, equations are parsed with
+Accelerator-first design: instead of Julia AST -> `eval`, equations are parsed with
 Python's `ast`, rewritten into jnp row-slice expressions, and compiled once at
 model-build time into an ordinary Python function that JAX traces. All
 arithmetic is elementwise over the time axis natively (no broadcast-operator
@@ -26,11 +26,11 @@ from typing import Callable, Iterable, Mapping, Sequence
 
 import jax.numpy as jnp
 import numpy as np
-import yaml
 
 from hank_tpu.blocks.assemble import shift_lag, shift_lead
 from hank_tpu.config import config
 from hank_tpu.model import grids as _grids
+from hank_tpu.model import yaml_subset
 from hank_tpu.model.structures import (
     CompSpec,
     HeterogeneityDimension,
@@ -307,8 +307,7 @@ def build_model_from_yaml(file_path: str) -> SequenceModel:
     build dimensions, build Variables (order: endogenous, heterogeneous,
     exogenous), compile equations, parse steady-state specs.
     """
-    with open(file_path) as f:
-        spec = yaml.safe_load(f)
+    spec = yaml_subset.load_file(file_path)
     directory = os.path.dirname(os.path.abspath(file_path))
 
     func_file = spec["file"]["function_file"]

@@ -4,7 +4,7 @@ Capability parity with the reference's L2 layer (`GeneralStructures.jl:24-226`):
 `HeterogeneityDimension`, `SteadyStateSpec`, `Variable`, `ComputationalSpec`,
 `SequenceModel`, plus accessors `var_names` / `vars_of_type` / `n_total`.
 
-Design differences (TPU-first, not a port):
+Design differences (accelerator-first, not a port):
 
 - Grids and transition matrices are `jnp` arrays so they become on-device
   constants inside traced functions.

@@ -24,17 +24,6 @@ def monetaryShock(T: int, *, size: float = -0.002, rho: float = 0.6, **kwargs) -
     return size * rho ** t
 
 
-def fused_prices(xp, exog_paths, model):
-    """Canonical-EGM price hook for the fused TPU sweep kernel
-    (`ops/fused_sweep.py`): household income is (Y − τ)·e with τ = r·B̄,
-    so the effective wage is s = Y − r·B̄ (the return stays r). Y is
-    exogenous, so its tangent is zero under the solver's JVP."""
-    endog = model.vars_of_type("endogenous")
-    r = xp[:, endog.index("r")]
-    Y = jnp.asarray(exog_paths["Y"], dtype=xp.dtype)
-    return r, Y - r * model.params["Bbar"]
-
-
 def ValueFunction(value_next, xvals, model):
     """One EGM step for the bond-holding household.
 

@@ -36,21 +36,13 @@ def exogenousZ(T: int, *, rho: float = 0.8, z_start: float = 1.0,
     return Z
 
 
-def fused_prices(xp, exog_paths, model):
-    """Canonical-EGM price hook for the fused TPU sweep kernel
-    (`ops/fused_sweep.py`): KS household income is w·e, so the effective
-    wage IS the wage. xp is the (T-1, n_endog) endogenous block."""
-    endog = model.vars_of_type("endogenous")
-    return xp[:, endog.index("r")], xp[:, endog.index("w")]
-
-
 def ValueFunction(value_next, xvals, model):
     """One EGM step for the KS household problem (`KrusellSmith.jl:43-83`).
 
     Maps the next-period marginal value ∂V_{t+1}/∂a' (n_a, n_e) to the
     current-period marginal value and savings policy:
 
-      1. Euler: c = (β · E_{e'|e}[∂V'/∂a'])^(−1/γ)          — MXU matmul with Πᵀ
+      1. Euler: c = (β · E_{e'|e}[∂V'/∂a'])^(−1/γ)          — matmul with Πᵀ
       2. Implied wealth on the endogenous grid: a = (c + a' − w·e)/(1+r)
       3. Interpolate savings policy onto the exogenous wealth grid
          (vectorized searchsorted + gather; flat extrapolation)

@@ -1,9 +1,9 @@
 """Device mesh and sharding layer.
 
 The reference has NO distributed machinery (SURVEY §2.10); this module is the
-TPU-native communication backend the new framework supplies: a
-`jax.sharding.Mesh` over ICI with NamedShardings, letting XLA insert all
-collectives. The primary data-parallel axis is the shock-path ensemble
+communication backend the new framework supplies: a
+`jax.sharding.Mesh` over the devices with NamedShardings, letting XLA insert
+all collectives. The primary data-parallel axis is the shock-path ensemble
 (BASELINE config 5: 1024 simultaneous T=300 paths); the household state axis
 is available as a second ("state") axis for very large grids.
 """

@@ -9,7 +9,7 @@ communication, and the only collective is the (tiny) Markov-mixing matmul
 plus the aggregation psum — both inserted by XLA from the shardings.
 
 The reference has no distributed machinery at all (SURVEY §2.10); this
-module supplies the TPU-native equivalent.
+module supplies the device-sharded equivalent.
 """
 
 from __future__ import annotations

@@ -41,7 +41,7 @@ def _accept_warm_start(x_ss, x_lin, lin_info, verbose):
 def solve_model(model, exog_paths=None, *, method: str = "newton_krylov",
                 direction_dtype=None, eps: float = 1e-8, verbose: bool = True,
                 cache: bool = True, records: list | None = None,
-                residual_mode: str = "auto", warm_start: str = "ss",
+                warm_start: str = "ss",
                 **solver_kwargs):
     """Full solve: steady states + J̄ (cached) + transition path.
 
@@ -49,10 +49,9 @@ def solve_model(model, exog_paths=None, *, method: str = "newton_krylov",
     steady-state path, the reference's choice `NewtonRaphson.jl:88-90`) or
     "linear" (the first-order IRF x_ss − J̄⁻¹F(x_ss), one residual + one
     precomputed-J̄⁻¹ matvec, `solvers/linear.py` — lands O(shock²) from the
-    root so Newton skips its opening contractions; measured trade-offs in
-    BASELINE.md round-5 "linear warm start"). Combine with
+    root so Newton skips its opening contractions). Combine with
     `richardson_max_outer=0` (boehl host_inner) for the endgame-only route
-    — the fastest measured two-asset T=300 configuration on v5e.
+    of the two-asset model.
 
     Extra keyword arguments are forwarded to `make_path_solver` (e.g.
     host_inner, richardson_max_outer, gmres_restart, endgame_gmres_tol).
@@ -104,7 +103,7 @@ def solve_model(model, exog_paths=None, *, method: str = "newton_krylov",
         solver = make_path_solver(Jbar, exog_paths, model, ss0, ssT,
                                   method=method, direction_dtype=direction_dtype,
                                   eps=eps, verbose=verbose, records=records,
-                                  residual_mode=residual_mode, **solver_kwargs)
+                                  **solver_kwargs)
         with phase("path solve", recs, verbose):
             x, info = solver(x0)
     x_path = np.asarray(x).reshape(Tm1, len(endog))
@@ -126,10 +125,6 @@ def main(argv=None):
     parser.add_argument("--warm-start", default="ss", choices=["ss", "linear"],
                         help="nonlinear-solver initial guess: steady-state "
                              "path or the first-order IRF (solvers/linear.py)")
-    parser.add_argument("--residual-mode", default="auto",
-                        choices=["auto", "ds", "f64"],
-                        help="full-precision residual path: fused "
-                             "double-single kernel (auto/ds) or plain f64")
     parser.add_argument("--out", default=None, help="CSV output path")
     parser.add_argument("--plot", default=None, metavar="PNG",
                         help="write a transition-path plot "
@@ -154,8 +149,7 @@ def main(argv=None):
     x_path, info, ss0, ssT = solve_model(
         model, method=args.method,
         direction_dtype=jnp.float32 if args.mixed else None,
-        eps=args.eps, cache=not args.no_cache,
-        residual_mode=args.residual_mode, warm_start=args.warm_start)
+        eps=args.eps, cache=not args.no_cache, warm_start=args.warm_start)
     wall = time.time() - t0
 
     endog = model.vars_of_type("endogenous")

@@ -13,7 +13,7 @@ sequence-space-Jacobian IRF (Auclert-Bardóczy-Rognlie-Straub 2021; Boehl
 `SteadyStateJacobian.jl:41-65`). For a permanent shock the same step also
 carries the initial-distribution transient (D0 ≠ D_ss) to first order.
 
-Cost: one residual evaluation + one precomputed-J̄⁻¹ MXU matvec — versus a
+Cost: one residual evaluation + one precomputed-J̄⁻¹ matvec — versus a
 full Newton solve for the nonlinear path. The gap between the two paths is
 the shock's economically meaningful nonlinearity, and `x_lin` is the
 standard warm start for the nonlinear solvers on large shocks.

@@ -11,10 +11,10 @@ and, exploiting block-Toeplitz time-translation invariance at the steady
 state, only ONE block column of each is computed; the full (T-1)×(T-1) block
 Jacobian is recovered by a diagonal-cumsum recursion (`:358-387`).
 
-TPU-first redesign:
+Accelerator-first redesign:
 - JDI/JBI columns are `vmap`ped `jax.jvp` sweeps; JFI is ONE `jax.vjp` of the
   forward scan pulled back against n_endog seeds — no hand-written rrules.
-- The O(T²) block products (`:299-304`) are a single einsum on the MXU.
+- The O(T²) block products (`:299-304`) are a single einsum.
 - The Toeplitz recursion is a diagonal gather → cumsum → gather (O(T²)
   memory, no sequential loop) instead of the O(T²) sequential recursion.
 - Everything is dense f64 on-device: the PR#481 sparsity-at-zero hazard

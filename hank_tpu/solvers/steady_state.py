@@ -9,7 +9,7 @@ Capability parity with the reference's `SteadyState.jl`:
 - `get_SteadyStates` (`SteadyState.jl:245-259`)
 - `single_run` diagnostic forward pass (`SteadyState.jl:272-286`)
 
-TPU-first redesign: the reference differentiates *through* the 10,000-iteration
+Accelerator-first redesign: the reference differentiates *through* the 10,000-iteration
 VFI loop with dual numbers (`SteadyState.jl:132-141` inside
 `ForwardDiff.jacobian`). Here the VFI fixed point is a `lax.while_loop` with a
 `jax.custom_jvp` implicit-differentiation rule: the tangent solves the linear

@@ -23,7 +23,10 @@ def trace(log_dir: str | None = None):
     with profiling.trace("/tmp/hank_trace"):
         solver(x0)
     """
-    log_dir = log_dir or os.path.expanduser("~/.cache/hank_tpu/traces")
+    if log_dir is None:
+        from hank_tpu.utils.checkpoint import cache_root
+
+        log_dir = os.path.join(cache_root(), "traces")
     os.makedirs(log_dir, exist_ok=True)
     jax.profiler.start_trace(log_dir)
     try:

@@ -2,7 +2,7 @@
 //
 // The reference calibrates its AD engine with C++ dual-number benchmarks on
 // the ackley and rosenbrock gradients (SURVEY §2.9). This file provides the
-// TPU build's native comparator: chunked Dual<N> gradients timed with
+// JAX build's native comparator: chunked Dual<N> gradients timed with
 // std::chrono, exported through a plain C interface consumed by
 // hank_tpu/utils/native.py. Run standalone:  make && ./bench_native
 //

@@ -3,7 +3,7 @@
 // Native benchmarking companion to hank_tpu's JAX forward-mode sweeps: the
 // reference ships a C++ dual-number micro-benchmark suite
 // (ForwardDiff.jl/benchmarks/cpp, SURVEY §2.9) to calibrate its AD engine
-// against hand-rolled native code; this is the equivalent for the TPU build,
+// against hand-rolled native code; this is the equivalent for the JAX build,
 // written as a single templated class (Dual<N>) with chunked seeding in the
 // gradient driver rather than per-width classes.
 //

@@ -2,6 +2,7 @@
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from hank_tpu.ops.egm import egm_consumption, interp_columns
 
@@ -143,3 +144,30 @@ def test_vfi_implicit_jvp_matches_finite_difference(ks_small):
     fd = (vfi(xvec + h * dx) - vfi(xvec - h * dx)) / (2 * h)
     denom = float(jnp.max(jnp.abs(fd))) + 1.0
     assert float(jnp.max(jnp.abs(dv - fd))) / denom < 1e-4
+
+
+@pytest.mark.parametrize("env_mode,expected", [(None, "gather"),
+                                               ("hat", "hat"),
+                                               ("gather", "gather")])
+def test_interp_mode_default_and_override(monkeypatch, env_mode, expected):
+    """`interp_columns` defaults to the gathers on every backend; the
+    HANK_TPU_INTERP probe override selects a form, and the exact-lowerings
+    mode always pins the gathers."""
+    from hank_tpu.config import exact_lowerings
+    from hank_tpu.ops.egm import _interp_mode
+
+    if env_mode is None:
+        monkeypatch.delenv("HANK_TPU_INTERP", raising=False)
+    else:
+        monkeypatch.setenv("HANK_TPU_INTERP", env_mode)
+    assert _interp_mode(200) == expected
+    with exact_lowerings():
+        assert _interp_mode(200) == "gather"
+
+
+def test_interp_mode_rejects_unknown(monkeypatch):
+    from hank_tpu.ops.egm import _interp_mode
+
+    monkeypatch.setenv("HANK_TPU_INTERP", "bogus")
+    with pytest.raises(ValueError, match="HANK_TPU_INTERP"):
+        _interp_mode(200)

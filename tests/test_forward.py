@@ -3,6 +3,7 @@
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from hank_tpu.ops.linalg import invariant_dist_colstoch
 from hank_tpu.ops.transition import (
@@ -142,39 +143,11 @@ def test_lottery_apply_multi_two_dims():
     assert np.allclose(out, expected, atol=1e-13)
 
 
-def test_lottery_2d_dense_matches_scatter():
-    """The dense one-hot GEMM lowering of the joint 2-D lottery (the TPU
-    path — the 4-corner scatter-add compiles/runs poorly there) is the same
-    operator as the scatter form, on full-size-shaped inputs."""
-    from hank_tpu.ops.transition import _lottery_apply_2d_dense, lottery_weights
-
-    rng = np.random.default_rng(11)
-    n_b, n_a, F = 40, 20, 10
-    gb = np.sort(rng.uniform(0, 100, n_b))
-    ga = np.sort(rng.uniform(0, 200, n_a))
-    shape = (n_b, n_a, F)
-    pb = rng.uniform(-5, 110, size=shape)    # incl. off-grid clamps
-    pa = rng.uniform(-5, 220, size=shape)
-    D = rng.uniform(0.1, 1, size=shape); D /= D.sum()
-    scatter = np.asarray(lottery_apply_multi(
-        [jnp.asarray(pb), jnp.asarray(pa)], jnp.asarray(D),
-        [jnp.asarray(gb), jnp.asarray(ga)]))   # CPU default: scatter path
-    idx_w = [lottery_weights(jnp.asarray(pb), jnp.asarray(gb)),
-             lottery_weights(jnp.asarray(pa), jnp.asarray(ga))]
-    dense = np.asarray(_lottery_apply_2d_dense(
-        idx_w, jnp.asarray(D), (n_b, n_a)))
-    assert abs(dense.sum() - 1.0) < 1e-12
-    assert np.abs(dense - scatter).max() < 1e-14
-
-
 def test_forward_exact_lowerings_match_default():
-    """Under `config.exact_lowerings` the forward block switches to
-    exactly-rounded contractions (unrolled exog FMAs, VPU-reduce joint
-    lottery instead of the emulated-f64 MXU GEMM — the round-4/5 two-asset
-    residual-floor channel BOTH residual variants shared,
-    scripts/r5_noise_decompose.py). Same operator on CPU f64 to ~1e-15."""
+    """Under `config.exact_lowerings` the exogenous mixing switches to
+    exactly-rounded unrolled FMAs instead of the tensordot contraction.
+    Same operator on CPU f64 to ~1e-15."""
     from hank_tpu.config import exact_lowerings
-    from hank_tpu.ops.transition import _lottery_apply_2d_dense, lottery_weights
 
     rng = np.random.default_rng(23)
     # exog_apply: two exogenous axes.
@@ -187,24 +160,6 @@ def test_forward_exact_lowerings_match_default():
         ex = np.asarray(exog_apply(jnp.asarray(D3),
                                    [jnp.asarray(P1), jnp.asarray(P2)], 1))
     assert np.abs(base - ex).max() < 1e-15
-
-    # joint 2-D lottery dense lowering, full-size-shaped.
-    n_b, n_a, F = 40, 20, 10
-    gb = np.sort(rng.uniform(0, 100, n_b))
-    ga = np.sort(rng.uniform(0, 200, n_a))
-    shape = (n_b, n_a, F)
-    pb = rng.uniform(-5, 110, size=shape)
-    pa = rng.uniform(-5, 220, size=shape)
-    D = rng.uniform(0.1, 1, size=shape); D /= D.sum()
-    idx_w = [lottery_weights(jnp.asarray(pb), jnp.asarray(gb)),
-             lottery_weights(jnp.asarray(pa), jnp.asarray(ga))]
-    dense = np.asarray(_lottery_apply_2d_dense(idx_w, jnp.asarray(D),
-                                               (n_b, n_a)))
-    with exact_lowerings(True):
-        dense_ex = np.asarray(_lottery_apply_2d_dense(idx_w, jnp.asarray(D),
-                                                      (n_b, n_a)))
-    assert abs(dense_ex.sum() - 1.0) < 1e-12
-    assert np.abs(dense - dense_ex).max() < 1e-14
 
 
 def test_invariant_dist_colstoch():
@@ -264,3 +219,43 @@ def test_forward_iteration_at_ss_is_constant(ks_small, ks_small_ss):
 
 
 
+
+
+@pytest.mark.parametrize("env_mode", ["scatter", "hat", "dense"])
+def test_lottery_mode_override_env(monkeypatch, env_mode):
+    """HANK_TPU_LOTTERY selects the lowering when no explicit mode is given
+    (the A/B probe override); every form is the same transition."""
+    grid, policy, D, _ = _rand_setup(seed=3)
+    explicit = np.asarray(lottery_apply(policy, D, grid, mode=env_mode))
+    monkeypatch.setenv("HANK_TPU_LOTTERY", env_mode)
+    via_env = np.asarray(lottery_apply(policy, D, grid))
+    assert np.array_equal(via_env, explicit)
+    scatter = np.asarray(lottery_apply(policy, D, grid, mode="scatter"))
+    assert np.allclose(via_env, scatter, atol=1e-13)
+
+
+def test_lottery_default_is_scatter(monkeypatch):
+    monkeypatch.delenv("HANK_TPU_LOTTERY", raising=False)
+    grid, policy, D, _ = _rand_setup(seed=4)
+    assert np.array_equal(np.asarray(lottery_apply(policy, D, grid)),
+                          np.asarray(lottery_apply(policy, D, grid,
+                                                   mode="scatter")))
+
+
+def test_lottery_unknown_mode_raises(monkeypatch):
+    monkeypatch.setenv("HANK_TPU_LOTTERY", "bogus")
+    grid, policy, D, _ = _rand_setup(seed=5)
+    with pytest.raises(ValueError, match="unknown lottery mode"):
+        lottery_apply(policy, D, grid)
+
+
+@pytest.mark.parametrize("mode", ["hat", "dense"])
+@pytest.mark.parametrize("n_a,n_e", [(5, 2), (64, 7)])
+def test_lottery_explicit_modes_match_scatter(mode, n_a, n_e):
+    """The explicit hat / dense forms equal the default scatter form at a
+    tiny and a production-like grid (incl. off-grid policies)."""
+    grid, policy, D, _ = _rand_setup(seed=n_a, n_a=n_a, n_e=n_e)
+    out = np.asarray(lottery_apply(policy, D, grid, mode=mode))
+    ref = np.asarray(lottery_apply(policy, D, grid, mode="scatter"))
+    assert np.allclose(out, ref, atol=1e-13)
+    assert abs(out.sum() - 1.0) < 1e-12

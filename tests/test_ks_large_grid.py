@@ -2,8 +2,7 @@
 
 Runs the FULL 500x7 household state space (no grid shrinking — the point is
 the large-grid code paths) at a short horizon. Exercises the scatter lottery
-lowering (the CPU default; dense one-hot is the TPU default for n_a ≤ 1024,
-`ops/transition.py:90-93`) and the kinked (clamped) shock path the model
+lowering (the default) and the kinked (clamped) shock path the model
 exists for.
 """
 

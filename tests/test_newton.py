@@ -42,9 +42,8 @@ def test_boehl_converges(path_setup):
 
 
 def test_boehl_host_inner_matches_traced(path_setup):
-    """host_inner=True (three small compiled programs, the stall-rescue
-    configuration — built because the traced two-asset outer_step stalls
-    the XLA:TPU compile pipeline) reproduces the traced boehl solve."""
+    """host_inner=True (a few small compiled programs, the stall-rescue
+    configuration) reproduces the traced boehl solve."""
     from hank_tpu.solvers.newton import make_path_solver
 
     model, ss, exog, x0, Jbar = path_setup
@@ -178,32 +177,27 @@ def test_stall_rescue_hands_off_to_boehl(path_setup, monkeypatch):
     assert float(jnp.max(jnp.abs(x - x_plain))) < 1e-7
 
 
-def test_ds_residual_solve_matches_f64(path_setup):
-    """residual_mode="ds" (forced, interpreted off-TPU) drives the solve to
-    the same path as the plain-f64 residual: the double-single endgame is a
-    drop-in for emulated f64 (VERDICT r2 item 3)."""
-    model, ss, exog, x0, Jbar = path_setup
-    from hank_tpu.ops.fused_ds import supports_ds_residual
+@pytest.mark.parametrize("method", ["newton_krylov", "boehl"])
+def test_path_solver_certifies_with_plain_f64_residual(path_setup, method):
+    """The norm a path solver reports is the plain f64 residual of the
+    pipeline at the returned path: re-evaluating make_full_residual_fn
+    independently reproduces it (no separate residual evaluator)."""
+    from hank_tpu.solvers.newton import make_path_solver
 
-    assert supports_ds_residual(model)
-    x_ds, info_ds = newton_raphson_hank(x0, Jbar, exog, model, ss, ss,
-                                        method="newton_krylov", eps=1e-9,
-                                        residual_mode="ds")
-    x_64, _ = newton_raphson_hank(x0, Jbar, exog, model, ss, ss,
-                                  method="newton_krylov", eps=1e-9,
-                                  residual_mode="f64")
-    assert float(info_ds["residual_norm"]) < 1e-9
-    # both land in the eps-basin; pointwise slack is ~cond(J)·eps
-    assert float(jnp.max(jnp.abs(x_ds - x_64))) < 1e-6
-    # the ds-reported convergence is genuine: re-measure in true f64
+    model, ss, exog, x0, Jbar = path_setup
+    kw = dict(host_inner=True) if method == "boehl" else {}
+    x, info = make_path_solver(Jbar, exog, model, ss, ss, method=method,
+                               eps=1e-9, direction_dtype=jnp.float32, **kw)(x0)
     F = make_full_residual_fn(model, ss, ss, exog)
-    assert float(jnp.linalg.norm(F(x_ds))) < 2e-9
+    recheck = float(jnp.linalg.norm(F(x)))
+    assert float(info["residual_norm"]) < 1e-9
+    assert recheck < 1e-9
+    assert abs(recheck - float(info["residual_norm"])) < 1e-12
 
 
 def test_fd_direction_matches_jvp(path_setup):
-    """Central-difference directions (the TPU endgame operator — emulated-f64
-    AD of the two-asset pipeline is non-finite on v5e) match the true JVP to
-    ~1e-9 per unit tangent: h²‖F‴‖ + ε₆₄‖F‖/h at h = 1e-5."""
+    """Central-difference directions (the endgame's fd operator) match the
+    true JVP to ~1e-9 per unit tangent: h²‖F‴‖ + ε₆₄‖F‖/h at h = 1e-5."""
     import jax
 
     model, ss, exog, x0, Jbar = path_setup
@@ -229,8 +223,7 @@ def test_boehl_host_inner_fd_endgame(path_setup, capsys):
     records = []
     solve = make_path_solver(Jbar, exog, model, ss, ss, method="boehl",
                              eps=1e-30, max_outer=8, max_inner=40,
-                             direction_dtype=jnp.float32, direction_mode="xla",
-                             residual_mode="f64", host_inner=True,
+                             direction_dtype=jnp.float32, host_inner=True,
                              endgame="fd", verbose=True, records=records)
     x, info = solve(x0)
     out = capsys.readouterr().out
@@ -247,9 +240,8 @@ def test_boehl_host_inner_fd_endgame(path_setup, capsys):
 
 def test_exact_lowerings_residual_matches(path_setup):
     """make_full_residual_fn(exact=True) traces under exact_lowerings and
-    matches the default program pointwise (on CPU both select gathers; on
-    TPU the exact form avoids the ~1.2e-10/step emulated-f64 GEMM rounding
-    that produced the two-asset residual floor — BASELINE.md post-mortem)."""
+    matches the default program pointwise (both select the gathers by
+    default; the exact form pins them even under a hat/dense override)."""
     from hank_tpu.config import exact_lowerings, exact_lowerings_active
     from hank_tpu.ops.egm import _interp_mode
 
@@ -265,3 +257,16 @@ def test_exact_lowerings_residual_matches(path_setup):
         assert exact_lowerings_active()
         assert _interp_mode(64) == "gather"
     assert not exact_lowerings_active()
+
+
+@pytest.mark.parametrize("endgame", ["auto", "bogus"])
+def test_endgame_rejects_unknown(path_setup, endgame):
+    """The endgame operator is "jvp" (default) or "fd"; any other value —
+    including the retired "auto" — is refused when the solver is built."""
+    from hank_tpu.solvers.newton import make_path_solver
+
+    model, ss, exog, x0, Jbar = path_setup
+    with pytest.raises(ValueError, match="unknown endgame"):
+        make_path_solver(Jbar, exog, model, ss, ss, method="boehl",
+                         host_inner=True, endgame=endgame,
+                         direction_dtype=jnp.float32)

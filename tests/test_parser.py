@@ -77,7 +77,7 @@ def test_build_ks_model():
 def test_compspec_dx_parsed_and_consumed():
     """CompSpec.dx carries the YAML fd-step (reference semantics,
     `ModelParser.jl:312-317`: yaml value or default 1e-8) and is consumed as
-    `direct_jacobian_columns`' default FD step (round-3 verdict item 7)."""
+    `direct_jacobian_columns`' default FD step."""
     import inspect
 
     from hank_tpu.config import config

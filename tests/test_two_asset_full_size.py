@@ -1,13 +1,9 @@
-"""Full-size two-asset HANK regression (VERDICT r2 item 9).
+"""Full-size two-asset HANK regression.
 
 The headline config (BASELINE config 3) is 40x20x5x2 = 8000 household
 states; until this file, its code path existed only in one-off manual runs.
 Covered here:
 
-- the `_use_dense_joint` gate arithmetic at the real operating point and at
-  the (1 << 25) boundary (backend mocked to TPU — the gate is TPU-only);
-- the dense joint-lottery lowering vs the scatter ground truth AT FULL SIZE
-  on the real steady-state policies;
 - the full-size steady state itself (artifact-cached after first solve) and
   a short-horizon path solve through the full pipeline.
 
@@ -22,25 +18,6 @@ import pytest
 
 from hank_tpu.models import load_model
 from tests.conftest import solve_ss_cached
-
-
-def test_dense_joint_gate_boundary(monkeypatch):
-    import jax
-
-    from hank_tpu.ops import transition
-
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    # Real operating point: 40*20*10*40 = 320,000 « 2^25 — dense ON.
-    assert transition._use_dense_joint((40, 20), 10)
-    # Exact boundary: n_b·n_a·F·max = 2^8·2^7·2^2·2^8 = 2^25 passes,
-    # one more exogenous state fails.
-    assert transition._use_dense_joint((256, 128), 4)
-    assert not transition._use_dense_joint((256, 128), 5)
-    # A large exogenous block alone must trip the gate (advisor finding):
-    # same endogenous shape, F = 8192 -> 2^32 » 2^25.
-    assert not transition._use_dense_joint((40, 20), 8192)
-    monkeypatch.setattr(jax, "default_backend", lambda: "cpu")
-    assert not transition._use_dense_joint((40, 20), 10)
 
 
 @pytest.fixture(scope="module")
@@ -65,27 +42,6 @@ def test_full_size_ss_clears_markets(full_model, full_ss):
     assert abs(float(ss.vars["A"]) - float(ss.vars["KS"])) < 1e-6
     assert float(jnp.min(ss.D)) >= -1e-15
     assert abs(float(jnp.sum(ss.D)) - 1.0) < 1e-10
-
-
-@pytest.mark.slow
-def test_full_size_dense_joint_equals_scatter(full_model, full_ss):
-    """The dense one-hot GEMM lowering == scatter at the REAL operating
-    point: full-size SS policies, full exogenous block."""
-    from hank_tpu.ops import transition
-
-    model, ss = full_model, full_ss
-    grids = [d.grid for d in model.endog_dims()]
-    pols = [ss.policies["B"], ss.policies["A"]]
-    endog_shape = ss.D.shape[:2]
-    F = int(np.prod(ss.D.shape[2:]))
-    d2 = ss.D.reshape(*endog_shape, F)
-    idx_w = []
-    for i, pol in enumerate(pols):
-        p2 = pol.reshape(*endog_shape, F)
-        idx_w.append(transition.lottery_weights(p2, grids[i]))
-    dense = transition._lottery_apply_2d_dense(idx_w, d2, endog_shape)
-    ref = transition.lottery_apply_multi(pols, ss.D, grids)  # scatter on CPU
-    assert float(jnp.max(jnp.abs(dense.reshape(ss.D.shape) - ref))) < 1e-13
 
 
 @pytest.mark.slow
